@@ -1,4 +1,4 @@
-"""floria_tpu — TPU-native metagenomic strain haplotype phasing.
+"""floria_tpu — accelerator-native metagenomic strain haplotype phasing.
 
 A from-scratch JAX/XLA framework with the capabilities of the
 reference tool floria (strain-level haplotype phasing of metagenomes from
@@ -12,29 +12,39 @@ __version__ = "0.1.0"
 
 import os as _os
 
+# Fixed fallback for the persistent caches: inside the checkout (listed
+# in .gitignore), so a cache key that includes the path keeps hitting.
+_DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def cache_dir() -> str:
+    """THE directory of every persistent cache this package keeps: the
+    XLA compilation cache, the AOT-export blobs (aotcache.py) and the
+    BAM range / VCF SNP-count sidecars. $JAX_COMPILATION_CACHE_DIR when
+    set (JAX reads that variable itself), else _DEFAULT_CACHE_DIR."""
+    return (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _DEFAULT_CACHE_DIR)
+
 
 def _enable_compilation_cache() -> None:
     """Persist XLA compilations across runs: the phasing kernel compiles
     one variant per (ploidy, read-bucket, site-bucket) shape, which is
     seconds each but adds up on first contact with a new workload."""
-    # CPU AOT cache entries are machine-feature sensitive (reload warns
-    # about SIGILL risk), so only cache for accelerator backends unless
-    # explicitly opted in (FLORIA_TPU_CPU_CACHE=1 — safe when the cache
-    # dir never leaves the machine, e.g. the multi-process scaling
-    # bench, where per-rank recompiles would masquerade as scaling
-    # loss).
+    # CPU executables are machine-feature sensitive (reload warns about
+    # SIGILL risk), so the CPU backend caches only when opted in
+    # (FLORIA_CPU_CACHE=1 — safe when the cache never leaves the
+    # machine, e.g. the multi-process scaling bench, where per-rank
+    # recompiles would masquerade as scaling loss).
     if ("cpu" in _os.environ.get("JAX_PLATFORMS", "").lower()
-            and _os.environ.get("FLORIA_TPU_CPU_CACHE") != "1"):
+            and _os.environ.get("FLORIA_CPU_CACHE") != "1"):
         return
     try:
         import jax
 
-        cache_dir = _os.environ.get(
-            "FLORIA_TPU_CACHE",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "floria_tpu_xla"))
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            jax.config.update("jax_compilation_cache_dir", cache_dir())
         jax.config.update("jax_persistent_cache_min_compile_time_secs",
                           0.5)
     except Exception:  # pragma: no cover - cache is best-effort

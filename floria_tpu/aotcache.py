@@ -20,12 +20,12 @@ same StableHLO the jit path lowers to, so XLA compiles the same
 program; pinned by tests/test_aotcache.py).
 
 Gating mirrors the XLA persistent cache (floria_tpu/__init__.py): on a
-CPU backend the cache only engages when FLORIA_TPU_CPU_CACHE=1 (so the
-test suite's throwaway processes don't churn ~/.cache); FLORIA_TPU_AOT=0
-kills it everywhere. Blobs are keyed on jax version, backend platform,
-a fingerprint of the kernel/phase sources (stale blobs die with the
-code that traced them), the function tag + static args, and the input
-avals. Writes are atomic (tmp + rename), failures fall back to the
+CPU backend the cache only engages when FLORIA_CPU_CACHE=1 (so the
+test suite's throwaway processes don't churn the cache); FLORIA_AOT=0
+kills it everywhere. Blobs live in floria_tpu.cache_dir(), keyed on
+jax version, backend platform, a fingerprint of the kernel/phase
+sources (stale blobs die with the code that traced them), the function
+tag + static args, and the input avals. Writes are atomic (tmp + rename), failures fall back to the
 plain jit path.
 """
 
@@ -48,22 +48,21 @@ _DISABLED_REASON: Optional[str] = None
 
 
 def _cache_dir() -> str:
-    return os.environ.get(
-        "FLORIA_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "floria_tpu_xla"))
+    from . import cache_dir
+
+    return cache_dir()
 
 
 def _enabled() -> bool:
     """Active exactly when the XLA persistent cache is (plus a kill
     switch): without the compile cache the blob only saves trace time
     and every throwaway test process would write blobs."""
-    if os.environ.get("FLORIA_TPU_AOT") == "0":
+    if os.environ.get("FLORIA_AOT") == "0":
         return False
     import jax
 
     if jax.default_backend() == "cpu" and os.environ.get(
-            "FLORIA_TPU_CPU_CACHE") != "1":
+            "FLORIA_CPU_CACHE") != "1":
         return False
     return True
 

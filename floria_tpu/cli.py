@@ -15,8 +15,9 @@ from .options import Options
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="floria-tpu",
-        description=("floria-tpu - TPU-native strain phasing for short or "
-                     "long-read shotgun metagenomic sequencing.\n\n"
+        description=("floria-tpu - accelerator-native strain phasing for "
+                     "short or long-read shotgun metagenomic "
+                     "sequencing.\n\n"
                      "Example usage:\n"
                      "floria-tpu -b bamfile.bam -v vcffile.vcf "
                      "-r reference.fa -o results\n"),
@@ -93,28 +94,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true",
                    help="Debugging output.")
     p.add_argument("--trace", action="store_true", help="Trace output.")
-    tpu = p.add_argument_group("TPU")
-    tpu.add_argument("--contig-batch", type=int, default=16,
+    dev = p.add_argument_group("DEVICE")
+    dev.add_argument("--contig-batch", type=int, default=16,
                      help="Contigs per shared device-batch group.")
-    tpu.add_argument("--num-devices", type=int, default=None,
+    dev.add_argument("--num-devices", type=int, default=None,
                      help="Devices to shard block batches over "
                           "(default: all local devices).")
-    tpu.add_argument("--sweep-cap", default="auto", metavar="{auto,N}",
+    dev.add_argument("--sweep-cap", default="auto", metavar="{auto,N}",
                      help="Read-site cells per phasing dispatch: 'auto' "
-                          "probes the device link once (small batches "
-                          "on a local chip, large on a high-latency "
-                          "link); or an integer. Output-invariant. "
+                          "probes the device round trip once (small "
+                          "batches on a fast one, large on a slow "
+                          "one); or an integer. Output-invariant. "
                           "(default: auto)")
-    tpu.add_argument("--resume", action="store_true",
+    dev.add_argument("--resume", action="store_true",
                      help="Skip contigs whose outputs already exist "
                           "(per-contig checkpointing).")
-    tpu.add_argument("--keep-going", action="store_true",
+    dev.add_argument("--keep-going", action="store_true",
                      help="Continue past per-contig failures.")
-    tpu.add_argument("--num-processes", type=int, default=1,
+    dev.add_argument("--num-processes", type=int, default=1,
                      help="Multi-host: total process count.")
-    tpu.add_argument("--process-id", type=int, default=0,
+    dev.add_argument("--process-id", type=int, default=0,
                      help="Multi-host: this process's index.")
-    tpu.add_argument("--coordinator", default=None,
+    dev.add_argument("--coordinator", default=None,
                      help="Multi-host: jax.distributed coordinator "
                           "address host:port.")
     return p

@@ -7,7 +7,7 @@ solver family as the reference's `highs` feature); a dense-simplex C++
 fallback lives in native/ for environments without scipy.
 
 The LP is tiny (edges ~ blocks * ploidy^2) and runs per contig on host —
-keeping it off-device is the right TPU design: it is branchy, sparse and
+keeping it off-device is the right design: it is branchy, sparse and
 microseconds-scale.
 """
 

@@ -111,13 +111,11 @@ class FastBam:
     def _sidecar_path(path: str) -> str:
         import hashlib
 
-        cache_dir = os.environ.get(
-            "FLORIA_TPU_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache",
-                         "floria_tpu_xla"))
+        from .. import cache_dir
+
         key = hashlib.sha1(
             os.path.abspath(path).encode()).hexdigest()[:16]
-        return os.path.join(cache_dir, f"bamidx_{key}.npz")
+        return os.path.join(cache_dir(), f"bamidx_{key}.npz")
 
     def _write_sidecar(self, path: str, header_end: int) -> None:
         """Persist tid-run decoded ranges after a full scan

@@ -1,7 +1,7 @@
 """Run configuration.
 
 Field-for-field parity with the reference Options struct
-(/root/reference/src/types_structs.rs:22-51) plus TPU-specific execution
+(types_structs.rs:22-51) plus device-specific execution
 settings that have no reference analog (device batching / mesh controls).
 """
 
@@ -50,7 +50,7 @@ class Options:
     num_threads: int = 10
     list_to_phase: List[str] = dataclasses.field(default_factory=list)
 
-    # --- TPU execution settings (no reference analog) ---
+    # --- device execution settings (no reference analog) ---
     # Skip contigs whose output directory already holds vartigs — the
     # per-contig elasticity the reference lacks (SURVEY.md §5
     # checkpoint/resume: per-contig output dirs are independent).

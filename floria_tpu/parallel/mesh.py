@@ -2,10 +2,10 @@
 
 Parallelism model (SURVEY.md §2.3): SNP-block instances are embarrassingly
 parallel until the hap-graph join, so the batch axis of the beam kernel is
-sharded over a 1-D ('block',) mesh with jax.sharding + shard_map — the TPU
-analog of the reference's rayon loop over blocks
+sharded over a 1-D ('block',) mesh with jax.sharding + shard_map — the
+device analog of the reference's rayon loop over blocks
 (graph_processing.rs:345-362). The only cross-shard communication is the
-reduction of per-block summaries at the join (psum/all_gather over ICI),
+reduction of per-block summaries at the join (psum/all_gather),
 mirroring the reference's process_chunks + update_hap_graph join.
 """
 

@@ -1,7 +1,7 @@
 """Multi-host execution: contig sharding across processes.
 
 The reference is a single shared-memory process (SURVEY.md §2.3). For
-pod-scale runs, floria-tpu distributes by the natural outer axis:
+multi-process runs, floria-tpu distributes by the natural outer axis:
 contigs. Each host process ingests only its share of contigs (the BAM is
 scanned once per process but only assigned contigs are decoded into
 fragments), phases its blocks on its local devices, and writes its own
@@ -10,12 +10,11 @@ output synchronization is needed beyond the shared contig_ploidy_info.tsv
 (written per-host as contig_ploidy_info.<proc>.tsv and merged by rank 0
 at the end).
 
-Block-level sharding across the local device mesh happens inside
-phase/local.py regardless of host count; ICI collectives stay within a
-host's slice, and no DCN traffic is needed during phasing at all.
-
-Cannot be exercised on single-host CI; validated structurally via
-deterministic shard assignment tests.
+Each process drives ONE accelerator: process i of a host takes local
+card i mod (cards on the host) (_local_device_ids), so several processes
+on a 4-card host never open each other's cards. Block-level sharding
+across a process's visible devices happens inside phase/local.py, and
+no cross-process traffic is needed during phasing at all.
 """
 
 from __future__ import annotations
@@ -45,9 +44,10 @@ def initialize_distributed(coordinator: Optional[str] = None,
         _allow_rank_cache_writes()
         return jax.process_index()
     try:
-        jax.distributed.initialize(coordinator_address=coordinator,
-                                   num_processes=num_processes,
-                                   process_id=process_id)
+        jax.distributed.initialize(
+            coordinator_address=coordinator,
+            num_processes=num_processes, process_id=process_id,
+            local_device_ids=_local_device_ids(process_id))
     except RuntimeError as e:
         # Tolerate a caller that already initialized; everything else
         # is a real failure.
@@ -57,13 +57,30 @@ def initialize_distributed(coordinator: Optional[str] = None,
     return jax.process_index()
 
 
+def _local_device_ids(process_id: int) -> Optional[List[int]]:
+    """The one local GPU this process drives: process_id modulo the
+    GPUs on this host. Without the restriction every process would open
+    every card and reserve most of its memory, so the second process on
+    a card runs out. None (no restriction) when JAX_LOCAL_DEVICE_IDS
+    says otherwise — jax.distributed reads it — or the host has no
+    NVIDIA GPU; jax.distributed applies the ids to CUDA/ROCm only."""
+    if os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        return None
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        n = len([v for v in visible.split(",") if v.strip()])
+    else:
+        n = len(glob.glob("/dev/nvidia[0-9]*"))
+    return [process_id % n] if n else None
+
+
 def _allow_rank_cache_writes() -> None:
     """Let every rank persist its XLA compilations, not just rank 0.
 
     jax._src.compiler._cache_write hard-gates persistent-cache writes to
-    process 0 — a write-contention guard for shared filesystems like
-    GCS. Under contig sharding each rank jits ITS OWN shard's shape
-    variants, which rank 0 never compiles, so with the gate every
+    process 0 — a write-contention guard for shared network
+    filesystems. Under contig sharding each rank jits ITS OWN shard's
+    shape variants, which rank 0 never compiles, so with the gate every
     rank > 0 silently re-pays its full compile bill on every restart
     (measured: 35 s/rank on the 16-contig CPU scaling bench vs 7 s for
     rank 0). This framework configures machine-local cache dirs
@@ -182,10 +199,9 @@ def _contig_snp_counts(vcf_file: str) -> dict:
     import json
 
     st = os.stat(vcf_file)
-    cache_dir = os.environ.get(
-        "FLORIA_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "floria_tpu_xla"))
+    from .. import cache_dir as _cache_dir
+
+    cache_dir = _cache_dir()
     key = hashlib.sha1(os.path.abspath(vcf_file).encode()).hexdigest(
     )[:16]
     path = os.path.join(cache_dir, f"vcfsnps_{key}.json")

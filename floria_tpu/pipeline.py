@@ -5,7 +5,7 @@ ingest -> (hybrid polish) -> (monomorphic filter) -> block phasing (device
 batched) -> hap-graph -> LP flow -> widest paths -> final assignment ->
 SNP-less gap reads -> outputs.
 
-TPU-first deviation: contigs are processed in GROUPS — realignment jobs
+Device-first deviation: contigs are processed in GROUPS — realignment jobs
 and SNP-block instances from every contig in a group batch into shared
 device dispatches (a block doesn't care which contig it came from), then
 the host-side join and outputs run per contig. The reference loops

@@ -1,7 +1,7 @@
 // Native BAM ingest accelerator.
 //
 // The reference leans on htslib (C) for BGZF + BAM decode
-// (file_reader.rs:12-16); this is the equivalent native layer for the TPU
+// (file_reader.rs:12-16); this is the equivalent native layer for the
 // build: a zlib-based BGZF inflater and a BAM record scanner that returns
 // flat arrays over ctypes, so the Python ingest layer only does numpy
 // slicing. Python keeps a pure fallback (floria_tpu/ingest/bam.py).

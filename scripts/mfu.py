@@ -1,44 +1,35 @@
-"""MFU / roofline accounting for the beam kernel (VERDICT r2 #3, re-
-grounded round 5 on the EXACT planes kernel).
+"""MFU / roofline accounting for the beam kernel.
 
-Counts FLOPs and HBM bytes per _step_planes (kernels/beam.py, the
-production impl for R <= _R_CHUNK) analytically from the dispatch
-shape, then measures the production mixed-ploidy sweep at several
-batch sizes G and reports achieved FLOP/s, HBM bandwidth, and fraction
-of v5e peak. The reference work unit being modeled is one read
-insertion into every beam slot (global_clustering.rs:49-147).
+Counts FLOPs and device-memory bytes per _step_planes (kernels/beam.py,
+the planes impl for R <= _R_CHUNK) analytically from the dispatch
+shape, then measures the mixed-ploidy sweep at several batch sizes G
+and reports achieved FLOP/s, memory bandwidth, and their share of the
+device's published peaks (PEAKS, keyed by JAX's device_kind; a device
+not in the table is an error). The reference work unit being modeled
+is one read insertion into every beam slot
+(global_clustering.rs:49-147).
 
-Round-5 cost model (impl=planes, exact arithmetic with explicit MXU
-precisions): the beam state is the persistent f32 count-plane pair
-cnt [B, P, 2A, S]; each step permutes it by a one-hot HIGHEST matmul,
-adds the read's row planes, and scores the read against the window —
-there is NO per-step full-R weight-tensor reread any more (the hist
-impl streamed [R, A, Wn] every step: 60-85% of HBM at the real shape,
-the round-5 probes that motivated the planes rework). Per scan step
-(B slots in, `out` slots out, ploidy P, A alleles, window Wn == S):
+Cost model (impl=planes, exact arithmetic): the beam state is the
+persistent f32 count-plane pair cnt [B, P, 2A, S]; each step permutes it
+by a one-hot matmul at EXACT_MATMUL_PRECISION (plain f32, outside the
+tensor cores on a GPU), adds the read's row planes, and scores the read
+against the window. Per scan step (B slots in, `out` slots out, ploidy
+P, A alleles, window Wn == S):
 
-  FLOPs (logical; the HIGHEST permutation runs 6 bf16 passes on the
-  MXU, so its hardware FLOPs are ~6x the logical count):
+  FLOPs (logical):
     permutation einsum : 2*out*B*P*2A*Wn
     row update         : 2*out*P*2A*Wn
     scoring (at/empty/cmp/mask reductions over plane pair): ~12*B*P*A*Wn
     newhist gather     : 2*out*B*P*R
     rank-select        : ~3*(B*P)^2
     dedup (2 fp)       : ~4*B*P*R
-  HBM bytes (f32; upper bound — XLA fuses some rereads):
+  Memory bytes (f32; upper bound — XLA fuses some rereads):
     cnt window read + permuted write : 4*Wn*2A*P*(B + out)
     scoring rereads of the window    : ~2 * 4*B*P*2A*Wn
     hist r/w                         : 2*4*B*P*R
     read row planes / masks          : ~4*(2A+2)*Wn
 
-The kernel is no longer HBM-streaming-bound: at the real e2e shape the
-measured per-step time (~0.25 ms at G=8) sits near ~100-200 GB/s of
-state traffic — permutation-matmul issue and small-op latency bound.
-The remaining ~3-5x headroom would need the whole scan resident in
-VMEM (the Pallas design), which is blocked on Mosaic's missing f64
-for the binomial-tail prune (kernels/beam_pallas.py round-5 note).
-
-Usage:  python scripts/mfu.py            (TPU; measures G sweep)
+Usage:  python scripts/mfu.py            (on a GPU; measures a G sweep)
         python scripts/mfu.py --model    (print the analytic table only)
 """
 
@@ -52,12 +43,25 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-# TPU v5e (1 chip) peaks — public spec: 197 TFLOP/s bf16, 394 TOP/s
-# int8; f32 on the MXU runs at ~1/4 bf16 rate (f32 accumulate via
-# passes), VPU f32 is far lower. HBM: 16 GB @ 819 GB/s.
-PEAK_BF16 = 197e12
-PEAK_F32 = PEAK_BF16 / 4.0
-HBM_BW = 819e9
+# Published peaks per device_kind, dense rates without sparsity. Source:
+# NVIDIA H100 Tensor Core GPU datasheet, SXM5 column (rates assume the
+# full 700 W power limit): bf16 989 TFLOP/s, TF32 495 TFLOP/s, f32 67
+# TFLOP/s outside the tensor cores, f64 34 TFLOP/s (67 on the tensor
+# cores), HBM3 3.35 TB/s.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bf16": 989e12, "tf32": 495e12,
+                              "f32": 67e12, "f64": 34e12,
+                              "hbm_bytes_per_s": 3.35e12},
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    """The PEAKS row of device_kind; KeyError for an unknown device."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device_kind "
+                       f"{device_kind!r}; add them to scripts/mfu.py "
+                       f"PEAKS with their source")
+    return PEAKS[device_kind]
 
 
 def step_flops(B, P, R, A, Wn, out):
@@ -110,6 +114,8 @@ def model_table(configs):
 def measure(G_list, R, S):
     import jax
 
+    peak = peaks_for(jax.devices()[0].device_kind)
+
     from bench import make_workload
     from floria_tpu.kernels.beam import beam_search_batch_mixed
 
@@ -127,7 +133,7 @@ def measure(G_list, R, S):
         def sweep():
             r = beam_search_batch_mixed(a4, w4, n4, e4, nparts,
                                         max(ploidies), 10, max_alleles=2)
-            np.asarray(r[4])
+            jax.block_until_ready(r)
 
         sweep()
         iters = 3
@@ -143,10 +149,11 @@ def measure(G_list, R, S):
             "sweep_s": round(dt, 3),
             "reads_per_sec": round(G * R * len(ploidies) / dt, 1),
             "achieved_tflops": round(fl / dt / 1e12, 3),
-            "mfu_vs_f32_peak_pct": round(100 * fl / dt / PEAK_F32, 2),
-            "mfu_vs_bf16_peak_pct": round(100 * fl / dt / PEAK_BF16, 2),
+            "device_kind": jax.devices()[0].device_kind,
+            "mfu_vs_f32_peak_pct": round(100 * fl / dt / peak["f32"], 2),
             "hbm_gbps_upper_bound": round(by / dt / 1e9, 1),
-            "hbm_frac_pct": round(100 * by / dt / HBM_BW, 1),
+            "hbm_frac_pct": round(
+                100 * by / dt / peak["hbm_bytes_per_s"], 1),
         })
         print(json.dumps(out[-1]), flush=True)
     return out

@@ -77,7 +77,8 @@ def test_partial_decode_matches_full(have_native, tmp_path, monkeypatch):
     from floria_tpu.ingest.fastingest import FastBam
     from floria_tpu.sim.simulate import SimConfig, simulate_multi
 
-    monkeypatch.setenv("FLORIA_TPU_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                       str(tmp_path / "cache"))
     cfgs = [SimConfig(contig_name=f"c{i}", contig_len=8_000,
                       num_strains=2, num_snps=40,
                       coverage_per_strain=4.0, read_length=1_500,
@@ -121,7 +122,8 @@ def test_partial_decode_stale_sidecar(have_native, tmp_path, monkeypatch):
     from floria_tpu.ingest.fastingest import FastBam
     from floria_tpu.sim.simulate import SimConfig, simulate_multi
 
-    monkeypatch.setenv("FLORIA_TPU_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                       str(tmp_path / "cache"))
     cfgs = [SimConfig(contig_name=f"s{i}", contig_len=6_000,
                       num_strains=2, num_snps=30,
                       coverage_per_strain=3.0, read_length=1_200,
@@ -159,7 +161,8 @@ def test_contig_snp_counts_cache(tmp_path, monkeypatch, small_sim):
     from floria_tpu.parallel.multihost import _contig_snp_counts
 
     cfg, _truth, out = small_sim
-    monkeypatch.setenv("FLORIA_TPU_CACHE", str(tmp_path / "cache"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                       str(tmp_path / "cache"))
     vcf = os.path.join(out, "sim.vcf")
     fresh = _contig_snp_counts(vcf)
     assert fresh[cfg.contig_name] > 0
